@@ -1,9 +1,9 @@
-"""merfin_tpu — a TPU-native k-mer validation engine.
+"""merfin_tpu — a k-mer validation engine on an accelerator (JAX/XLA).
 
 A from-scratch reimplementation of the capabilities of Merfin
 (arangrhie/merfin: k-mer validated variant filtering, assembly evaluation
-and polishing) designed for TPU hardware: k-mer databases live as sharded
-sorted-array lookup tables in device HBM, sequence and variant windows
+and polishing) built as array programs: k-mer databases live as sharded
+sorted-array lookup tables in device memory, sequence and variant windows
 stream through batched data-parallel programs under ``jit``/``shard_map``,
 and all statistics merge via collective reductions.
 

@@ -93,10 +93,6 @@ def merfin_main(argv: list[str]) -> int:
                 cfg.resume = True
             elif a == "-mesh":
                 cfg.mesh = nextarg()
-            elif a == "-sortjoin":
-                cfg.sortjoin = True
-            elif a == "-nosortjoin":
-                cfg.sortjoin = False
             elif a == "-devscore":
                 cfg.devscore = True
             elif a == "-nodevscore":
@@ -142,7 +138,7 @@ def _usage() -> None:
     # Full-parity help: same shape and content as the reference's usage
     # dump (merfin.C:185-356) — per-mode sections with required/optional
     # flags and output schemas — adapted where the backing store differs
-    # (MKDB instead of meryl) and extended with the TPU-specific flags.
+    # (MKDB instead of meryl) and extended with this build's own flags.
     _VCF_OPTS = (
         "   Optional: -comb <N>    set the max N of combinations of variants to be evaluated (default: 15)\n"
         "             -nosplit     without this option combinations larger than N are split\n"
@@ -286,10 +282,9 @@ def _usage() -> None:
         "      record                  - vcf record with <tab> replaced to <space>.\n"
         "                                only non-reference alleles are printed with GT being 1/1.\n"
         "\n\n"
-        "  TPU extensions (all optional):\n"
+        "  Extensions (all optional):\n"
         "    -mesh DxT        shard the lookup tables over a DxT device mesh (all report types)\n"
         "    -resume          checkpointed restart at the sequence boundary\n"
-        "    -sortjoin / -nosortjoin    Pallas sorted-join kernel for -hist (auto on accelerators)\n"
         "    -devscore / -nodevscore    fused on-device variant scoring (auto: on wherever\n"
         "                     it is provably byte-identical — all numM-only modes, and -polish\n"
         "                     without a -prob table via the integer fast path; off for -debug\n"
@@ -479,21 +474,11 @@ def run(cfg: MerfinConfig) -> int:
                 mesh, read_sharded, asm_sharded, k, cfg.peak, prob_table=prob,
                 max_value=_db_max(read_db), exact_max=True,
                 asm_max_value=_db_max(asm_db))
-        import jax
-
         from merfin_tpu.modes.engine import KstarEngine
 
-        sortjoin = cfg.sortjoin
-        if cfg.report_type != "hist":
-            sortjoin = False   # dump needs positional output
-        elif sortjoin is None:  # auto: the Pallas join path on accelerators
-            sortjoin = jax.default_backend() != "cpu"
-        engine = KstarEngine(read_lookup, asm_lookup, k, cfg.peak, prob_table=prob,
-                             max_value=_db_max(read_db), sortjoin=sortjoin,
-                             exact_max=True, asm_max_value=_db_max(asm_db))
-        if engine.sortjoin:
-            print("-- Using sorted-join lookup kernel for -hist.", file=log)
-        return engine
+        return KstarEngine(read_lookup, asm_lookup, k, cfg.peak, prob_table=prob,
+                           max_value=_db_max(read_db), exact_max=True,
+                           asm_max_value=_db_max(asm_db))
 
     if cfg.report_type == "hist":
         from merfin_tpu.modes.hist import run_hist
@@ -578,7 +563,7 @@ def run(cfg: MerfinConfig) -> int:
 # ---------------- database tools (meryl analog) ----------------
 
 def db_tool_main(argv: list[str]) -> int:
-    setup_runtime()   # honors MERFIN_PLATFORM + persistent compile cache
+    setup_runtime()   # x64 + persistent compile cache
     from merfin_tpu.io.mkdb import KmerDB
     from merfin_tpu.io import meryl_text
     from merfin_tpu.count import algebra

@@ -1,4 +1,4 @@
-"""MKDB — the TPU-native k-mer database format.
+"""MKDB — this engine's k-mer database format.
 
 Replaces the on-disk meryl database (the reference links meryl's
 kmers-files/reader/writer, src/main.mk:22-29; merfin consumes it through

@@ -11,7 +11,7 @@ else = 4 (invalid).  Forward mers pack the first base into the most
 significant bits so that integer order == lexicographic ACGT order.
 Canonical mer = min(fmer, rmer), stored once, like a canonical meryl DB.
 
-The jnp/Pallas device equivalents live in merfin_tpu/ops/.
+The jnp device equivalents live in merfin_tpu/ops/.
 """
 
 from __future__ import annotations

@@ -126,18 +126,15 @@ def pack_group_transfer(seqs, k: int, chunk: int, rows: int, capacity: int):
 
 def counts_by_sort(comp, domain: int):
     """Value histogram of ``comp`` (ints in [0, domain)) — one sort +
-    boundary searchsorted (default; r5 same-session e2e A/B: 14.5M vs
-    12.7M bases/s for the run-length-compaction variant, which is kept
-    behind MERFIN_HIST_BOUNDS=runs — isolated-stage ablations had
-    disagreed across sessions, the e2e A/B settled it).
+    boundary searchsorted (default), or a run-length compaction of the
+    sorted stream behind MERFIN_HIST_BOUNDS=runs.
 
-    jnp.bincount over the full stream lowers to a per-window scatter-add
-    (~10x a sort on this TPU, docs/PERF.md); a searchsorted over all
-    ``domain`` boundaries costs domain x log(W) gathers (~15 ms at 32k
-    boundaries x 2^20 windows — the r5 ablation's hist-stage wall).
-    Runs are value-bounded: at most ``domain`` distinct runs exist, so
-    the boundary-position sort compacts to [domain] rows and the final
-    scatter-add touches ``domain`` elements, not the stream."""
+    Both avoid a per-window scatter-add (jnp.bincount over the full
+    stream); whether that trade still pays on the current accelerator
+    is not measured.  Runs are value-bounded: at most ``domain`` distinct
+    runs exist, so the boundary-position sort compacts to [domain] rows
+    and the final scatter-add touches ``domain`` elements, not the
+    stream."""
     import jax.numpy as jnp
 
     import os
@@ -183,8 +180,7 @@ def seg_counts_by_sort(seg, valid, missing):
 
     seg: window slot ids (any order — the helper sorts); valid/missing:
     classification masks aligned with seg.  Same sort-vs-scatter trade
-    as two_hist_by_sort: per-window bincounts cost ~10x a sort, and a
-    full-boundary searchsorted costs domain x log(W) gathers.
+    as two_hist_by_sort.
     """
     import jax.numpy as jnp
 
@@ -210,9 +206,6 @@ def fold_hist_state(state, out):
             state[10] + kr, state[11] + kfbc)
 
 
-from merfin_tpu.ops.sortjoin import _JnpSortJoin  # noqa: F401  (compat re-export)
-
-
 class KstarEngine:
     def __init__(
         self,
@@ -224,10 +217,8 @@ class KstarEngine:
         chunk: int = 1 << 19,
         batch: int | None = None,
         max_value: int | None = None,
-        sortjoin: bool = False,
         pack_transfer: bool = True,
         exact_max: bool = False,
-        sortjoin_union: bool = True,
         asm_max_value: int | None = None,
     ):
         ensure_x64()
@@ -240,21 +231,13 @@ class KstarEngine:
         self.k = k
         self.peak = float(peak)
         self.chunk = chunk
-        # Default batch: round-3 e2e sweep on a v5e (2^25-base input,
-        # 8.4M-key table, docs/PERF.md "Round 3"): batch 2 routes the
-        # ratio rule to the v4 kernel and pipelines best — 9.6M bases/s
-        # vs 7.4M at the old batch-16/v1 config, whose [g, QB, 1]
-        # query-column layout pads 128x and forces XLA remat at batch 16
-        # (and OOMs outright at 32).  The gather path materializes
-        # [windows, R] take temporaries, so its batch stays small
-        # (16 OOMs a 16 GB HBM).
-        if batch is None:
-            batch = 2 if sortjoin else 4
-        self.batch = batch
+        # Default batch (windows per dispatch = batch x chunk): 4.  Not
+        # tuned on the current accelerator.
+        self.batch = 4 if batch is None else batch
         from merfin_tpu.score.bin_table import BinTable
 
-        # getK evaluated exactly on host per raw value (TPU f64 is ~48-bit;
-        # see merfin_tpu/score/value_map.py); same for histogram bins
+        # getK evaluated exactly on host per raw value (see
+        # merfin_tpu/score/value_map.py); same for histogram bins
         # exact_max: caller asserts max_value is the scanned DB maximum
         # (the CLI does); the overflow fallback then compiles away
         self.value_map = ValueMap(peak, prob_table, max_value or (1 << 19),
@@ -274,35 +257,6 @@ class KstarEngine:
         self.bin_fallbacks = 0
         self.kover_fallbacks = 0
 
-        # The gather-free sorted-join path (Pallas); even-k palindromic
-        # doubling rides the device sort as a secondary operand.
-        self.sortjoin = bool(sortjoin)
-        self.sortjoin_union = bool(sortjoin_union)
-        if self.sortjoin:
-            from merfin_tpu.ops.join_kernel import QB
-            from merfin_tpu.ops.sortjoin import (build_sortjoin_table,
-                                                 build_sortjoin_union_table)
-
-            assert (self.chunk * self.batch) % QB == 0
-
-            # host rows (keys_np/vals_np), not the device arrays: fetching
-            # the table back over the link just to re-pack it would be
-            # absurd, and touching lookup.keys would trigger the lazy
-            # gather-table placement a sorted-join run never needs
-            windows = self.chunk * self.batch
-            if self.sortjoin_union:
-                # ONE union table: a single probe returns (readV, asmV)
-                # — half the join passes per dispatch (getK always needs
-                # both, merfin-globals.C:101-110)
-                self._sj_union = build_sortjoin_union_table(
-                    read_lookup.keys_np, read_lookup.vals_np,
-                    asm_lookup.keys_np, asm_lookup.vals_np, k, windows)
-            else:
-                self._sj_read = build_sortjoin_table(
-                    read_lookup.keys_np, read_lookup.vals_np, k, windows)
-                self._sj_asm = build_sortjoin_table(
-                    asm_lookup.keys_np, asm_lookup.vals_np, k, windows)
-
         # Table/value-map arrays flow through jit as ARGUMENTS so the
         # compiled programs are table-independent (closure-captured
         # tables bake into the executable: huge compiles, zero cache
@@ -319,10 +273,9 @@ class KstarEngine:
         self._make_jits()
         # packed-group capacity (positions) for fragmented assemblies
         self.group_capacity = self.batch * self.chunk
-        # dump_group always rides the gather tables (positional output),
-        # whose [windows, R] take temporaries OOM a 16 GB HBM at the
-        # sortjoin default batch=16 — cap its packed rows independently
-        # of self.batch so one engine can serve both modes.
+        # dump_group's positional output and [windows, R] take
+        # temporaries grow with the batch: cap its packed rows at 4
+        # batches whatever self.batch is.
         self.dump_batch = min(self.batch, 4)
         self.dump_group_capacity = self.dump_batch * self.chunk
 
@@ -351,15 +304,8 @@ class KstarEngine:
         self._make_jits()
 
     def _step_args(self):
-        """(tables, value-map arrays): tables is a pytree — one union
-        tree on the union sortjoin path, else (read, asm) trees."""
-        if self.sortjoin:
-            if self.sortjoin_union:
-                tables = (self._sj_union.tree(),)
-            else:
-                tables = (self._sj_read.tree(), self._sj_asm.tree())
-        else:
-            tables = (self.read_lookup.tree(), self.asm_lookup.tree())
+        """(tables, value-map arrays): tables = (read, asm) trees."""
+        tables = (self.read_lookup.tree(), self.asm_lookup.tree())
         return (tables, self.value_map.device_arrays())
 
     def _hist_step(self, state, codes):
@@ -387,7 +333,6 @@ class KstarEngine:
                             self.kover_vmaxp, self.bin_table.amax)
 
     def _dump_step(self, codes):
-        # dump always uses the gather tables (it needs positional output)
         if self.pack_transfer:
             from merfin_tpu.kcore.pack import pack_transfer_np
 
@@ -416,53 +361,6 @@ class KstarEngine:
         asm_k = jnp.where(valid, asm_k, 0.0)
         return read_k, asm_k, prob, valid, overflow, read_v
 
-    def _sj_probe(self, tables, qs):
-        """Sorted-query probe -> (read_v, asm_v) u64: one union-table
-        pass (the default) or two single-table passes."""
-        if self.sortjoin_union:
-            (u_tree,) = tables
-            rv, av = self._sj_union.lookup2_sorted_with(u_tree, qs)
-            return rv.astype(np.uint64), av.astype(np.uint64)
-        r_tree, a_tree = tables
-        read_v = self._sj_read.lookup_sorted_with(r_tree, qs).astype(np.uint64)
-        asm_v = self._sj_asm.lookup_sorted_with(a_tree, qs).astype(np.uint64)
-        return read_v, asm_v
-
-    def _lookup_kvals_sorted(self, codes, tables, vm):
-        """Sorted-join hist path: device-sort the canonical mers (invalid
-        windows become u64::MAX sentinels), run the gather-free Pallas
-        join (union table by default: one probe yields both DB values),
-        and classify positionally — every hist consumer is a reduction,
-        so the permutation is irrelevant.
-
-        Even k: palindromic windows (fmer == rmer) double their value
-        (merfin-globals.C:101-110 sums fmer+rmer lookups); the x2
-        multiplier rides the sort as a secondary lax.sort operand, the
-        same trick the group path uses for seg."""
-        import jax
-        import jax.numpy as jnp
-
-        fmer, rmer, valid = kmer_windows(codes, self.k)
-        canon = jnp.minimum(fmer, rmer)
-        canon = jnp.where(valid, canon, jnp.uint64(0xFFFFFFFFFFFFFFFF))
-        if self.k % 2 == 0:
-            mult = jnp.where(fmer == rmer, jnp.uint32(2), jnp.uint32(1))
-            qs, mult_s = jax.lax.sort(
-                (canon.reshape(-1), mult.reshape(-1)), num_keys=1)
-        else:
-            qs = jnp.sort(canon.reshape(-1))   # odd k: no palindromes
-            mult_s = None
-        valid_s = qs != jnp.uint64(0xFFFFFFFFFFFFFFFF)
-        read_v, asm_v = self._sj_probe(tables, qs)
-        if mult_s is not None:
-            read_v = read_v * mult_s
-            asm_v = asm_v * mult_s
-        read_k, prob, overflow = self.value_map.lookup_jnp(read_v, vm)
-        asm_k = asm_v.astype(jnp.float64)
-        read_k = jnp.where(valid_s, read_k, 0.0)
-        asm_k = jnp.where(valid_s, asm_k, 0.0)
-        return read_k, asm_k, prob, valid_s, overflow, read_v
-
     def _hist_chunk(self, codes, tables, vm, bins):
         """codes uint8 [B, C + k - 1] -> per-batch reduced hist stats.
 
@@ -476,12 +374,8 @@ class KstarEngine:
 
         from merfin_tpu.score.kover import kover_parts
 
-        if self.sortjoin:
-            (read_k, asm_k, prob, valid, overflow,
-             read_v) = self._lookup_kvals_sorted(codes, tables, vm)
-        else:
-            (read_k, asm_k, prob, valid, overflow,
-             read_v) = self._lookup_kvals(codes, *tables, vm)
+        (read_k, asm_k, prob, valid, overflow,
+         read_v) = self._lookup_kvals(codes, *tables, vm)
 
         missing = valid & (read_k == 0)
         is_undr = valid & (read_k > 0) & (asm_k > read_k)
@@ -507,38 +401,6 @@ class KstarEngine:
         return (kasm, kmissing, kover_fb, undr_hist, over_hist, max_idx,
                 overflow, fallbacks, kc, kn, kr, kfbc)
 
-    def _lookup_kvals_sorted_seg(self, codes, seg, tables, vm):
-        """Sorted-join GROUP path: the seg plane rides the device sort as
-        a secondary operand (lax.sort num_keys=1), so per-slot reductions
-        survive the permutation — every consumer downstream is a
-        reduction, positional order never matters."""
-        import jax
-        import jax.numpy as jnp
-
-        fmer, rmer, valid = kmer_windows(codes, self.k)
-        canon = jnp.minimum(fmer, rmer)
-        canon = jnp.where(valid, canon, jnp.uint64(0xFFFFFFFFFFFFFFFF))
-        if self.k % 2 == 0:
-            mult = jnp.where(fmer == rmer, jnp.uint32(2), jnp.uint32(1))
-            qs, seg_s, mult_s = jax.lax.sort(
-                (canon.reshape(-1), seg.reshape(-1).astype(jnp.int32),
-                 mult.reshape(-1)), num_keys=1)
-        else:
-            qs, seg_s = jax.lax.sort(
-                (canon.reshape(-1), seg.reshape(-1).astype(jnp.int32)),
-                num_keys=1)
-            mult_s = None
-        valid_s = qs != jnp.uint64(0xFFFFFFFFFFFFFFFF)
-        read_v, asm_v = self._sj_probe(tables, qs)
-        if mult_s is not None:
-            read_v = read_v * mult_s
-            asm_v = asm_v * mult_s
-        read_k, prob, overflow = self.value_map.lookup_jnp(read_v, vm)
-        asm_k = asm_v.astype(jnp.float64)
-        read_k = jnp.where(valid_s, read_k, 0.0)
-        asm_k = jnp.where(valid_s, asm_k, 0.0)
-        return read_k, asm_k, prob, valid_s, overflow, read_v, seg_s
-
     def _hist_group_chunk(self, codes, seg, tables, vm, bins):
         """Packed-group -hist step: codes [B, C + k - 1] with SEG_MAX
         sequences packed per dispatch (k-1 separators), seg [B, C] giving
@@ -551,12 +413,8 @@ class KstarEngine:
 
         from merfin_tpu.score.kover import kover_parts
 
-        if self.sortjoin:
-            (read_k, asm_k, prob, valid, overflow, read_v,
-             seg) = self._lookup_kvals_sorted_seg(codes, seg, tables, vm)
-        else:
-            (read_k, asm_k, prob, valid, overflow,
-             read_v) = self._lookup_kvals(codes, *tables, vm)
+        (read_k, asm_k, prob, valid, overflow,
+         read_v) = self._lookup_kvals(codes, *tables, vm)
 
         missing = valid & (read_k == 0)
         is_undr = valid & (read_k > 0) & (asm_k > read_k)
@@ -631,9 +489,8 @@ class KstarEngine:
         of in-flight device results.  The caller overlaps the next
         group's host packing/transfer with this one's device compute and
         fetches via hist_group_finalize (modes/hist.py keeps 2 in
-        flight — the sweatShop loader-queue analog for a remotely
-        attached chip, where the fetch round-trip otherwise serializes
-        every dispatch)."""
+        flight — the sweatShop loader-queue analog: without it the fetch
+        round trip serializes every dispatch)."""
         n_seq = len(seqs)
         inputs, _ = self._group_inputs(seqs)
         out = self._hist_group_impl(*inputs, *self._step_args(),
@@ -742,9 +599,9 @@ class KstarEngine:
 
         Mirrors processDump (merfin-dump.C:21-68).  K* is computed on the
         host from the fetched readK/asmK (k_metric_np): one less array
-        over the link, and %.2f output is host-f64 exact regardless of
-        the accelerator's f64 emulation.  Both are integer-valued, so
-        they cross the link as uint32 (half the f64 fetch bytes).
+        to fetch, and %.2f output is host-f64 exact.  Both are
+        integer-valued, so they cross to the host as uint32 (half the
+        f64 fetch bytes).
         """
         import jax.numpy as jnp
 
@@ -836,8 +693,8 @@ class KstarEngine:
 
         Keeps 2 dispatches in flight: chunk i+1's transfer + device
         compute overlaps chunk i's result fetch (the dump analog of the
-        hist pipelining; without it every chunk pays the full round trip
-        of a remotely attached chip)."""
+        hist pipelining; without it every chunk pays the full device
+        round trip)."""
         from collections import deque
 
         from merfin_tpu.score.kstar import k_metric_np

@@ -206,6 +206,16 @@ class DebugWriter:
         self.file.close()
 
 
+def pin_cpu_worker() -> None:
+    """Pool initializer: keep a worker process off the accelerator."""
+    import os as _os
+
+    _os.environ["JAX_PLATFORMS"] = "cpu"
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+
+
 def run_variants(
     mode: str,
     seq_file: SeqFile,
@@ -251,12 +261,15 @@ def run_variants(
     def get_pool():
         """Spawn the worker pool on first heavy cluster (spawn startup is
         ~1s; a run of all-light clusters never pays it).  spawn, not
-        fork: the parent holds live device runtime state."""
+        fork: the parent holds live device runtime state.  Workers are
+        pinned to the CPU platform: each process that opens an
+        accelerator reserves most of its memory."""
         nonlocal pool
         if pool is None and threads and threads > 1:
             import multiprocessing as mp
 
-            pool = mp.get_context("spawn").Pool(threads)
+            pool = mp.get_context("spawn").Pool(threads,
+                                                initializer=pin_cpu_worker)
         return pool
 
     suffix = "polish" if mode == "polish" else "filter"
@@ -382,7 +395,6 @@ def run_variants(
         # Pool threshold: the scalar path wins from 2 workers; the fused
         # path's array-native enumeration is ~6x faster, so the spawn +
         # PathBlock-pickle overhead only pays off from 3+ workers
-        # (docs/PERF.md r4 host-ceiling measurements)
         min_workers = 3 if use_blocks else 2
         heavy = [i for i, a in enumerate(enum_args)
                  if a is not None and _est_paths(a[3]) >= _POOL_MIN_PATHS] \

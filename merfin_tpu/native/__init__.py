@@ -45,10 +45,12 @@ def get_lib():
 
     try:
         _register(lib)
-    except AttributeError:
-        # stale .so (rebuild failed, e.g. no compiler) missing newer
-        # symbols: fall back to pure Python rather than crash callers
-        return None
+    except AttributeError as e:
+        # a stale .so (the rebuild failed, e.g. no compiler) lacks newer
+        # symbols: silently dropping every native helper would hide it
+        raise RuntimeError(
+            f"{_SO} is stale ({e}); rebuild it with "
+            f"'make -C {_DIR} -B'") from e
     _lib = lib
     return _lib
 

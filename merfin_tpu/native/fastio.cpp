@@ -3,7 +3,7 @@
 // The reference keeps its sequence IO and output formatting in C++
 // (dnaSeqFile/compressedFileWriter, utility submodule; consumed at
 // merfin.C:38 and merfin-dump.C:92).  This library provides the same
-// host-side speed for the TPU engine:
+// host-side speed for the JAX engine:
 //   * FASTA/FASTQ parsing + 2-bit base encoding into uint8 code arrays
 //     (A=0 C=1 G=2 T=3, other=4) in one pass,
 //   * %.2f dump-row formatting (merfin-dump.C:92 format, zero-row skip).

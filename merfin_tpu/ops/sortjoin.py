@@ -1,11 +1,12 @@
-"""Shared sorted-join table builder (kernel selection in ONE place).
+"""Sorted-join probes: exact (key -> value) lookups by binary search.
 
-Consumers of the gather-free sorted-join path (KstarEngine, DeviceScorer,
-run_completeness) all need the same decision: on CPU backends use the
-compiled jnp searchsorted probe (the Pallas kernels only run in interpret
-mode there), on accelerators pick v1 when the per-dispatch table/query
-ratio is small (its cost is QB x covered window) and v4 otherwise (fence
-narrowing scales flat with table size) — measurements in docs/PERF.md.
+run_completeness and the mesh shards in parallel/sharded.py probe a
+device-resident sorted key array with ``jnp.searchsorted`` and one
+equality-checked value gather; XLA compiles the search.  Queries may
+arrive in any order; completeness streams the already sorted read DB,
+which makes the search a coherent gather stream.
+
+Absent keys, and u64::MAX sentinel queries, read as value 0.
 """
 
 from __future__ import annotations
@@ -13,12 +14,24 @@ from __future__ import annotations
 import numpy as np
 
 
-class _JnpSortJoin:
-    """CPU stand-in for the Pallas sorted-join tables: same interface,
-    compiled jnp searchsorted probe.  Off-accelerator the Pallas kernels
-    only run in interpret mode (orders of magnitude slower, meant for
-    kernel unit tests) — this keeps -sortjoin usable and bit-exact on
-    CPU backends."""
+def probe_sorted(keys, vals, q, method: str = "scan"):
+    """Values of ``q`` in the sorted table (keys, vals); 0 where absent.
+    Traceable; ``q`` may have any shape.  ``method`` is jnp.searchsorted's
+    lowering ("scan", JAX's default binary search, measured fastest on
+    the H100 — PERF.md)."""
+    import jax.numpy as jnp
+
+    n = keys.shape[0]
+    if n == 0:
+        return jnp.zeros(q.shape, vals.dtype)
+    idx = jnp.searchsorted(keys, q, method=method)
+    idx_c = jnp.minimum(idx, n - 1)
+    return jnp.where(keys[idx_c] == q, vals[idx_c], jnp.zeros((), vals.dtype))
+
+
+class SortedTable:
+    """One device-resident sorted (keys u64, vals u32) table.  keys/vals
+    are HOST arrays; ``tree()`` rides through jit as an argument."""
 
     def __init__(self, keys: np.ndarray, vals: np.ndarray):
         import jax.numpy as jnp
@@ -30,91 +43,5 @@ class _JnpSortJoin:
     def tree(self):
         return (self.keys, self.vals)
 
-    def lookup_sorted(self, q):
-        return self.lookup_sorted_with(self.tree(), q)
-
     def lookup_sorted_with(self, tree, q):
-        import jax.numpy as jnp
-
-        keys, vals = tree
-        if self.n == 0:
-            return jnp.zeros(q.shape, jnp.uint32)
-        idx = jnp.searchsorted(keys, q)
-        idx_c = jnp.minimum(idx, self.n - 1)
-        return jnp.where(keys[idx_c] == q, vals[idx_c], jnp.uint32(0))
-
-
-class _JnpSortJoin2:
-    """CPU stand-in for the two-value union table (same interface as
-    ops.join_kernel4.SortJoinUnionV4): one searchsorted probe against
-    the union keys returns both DB values."""
-
-    def __init__(self, keys: np.ndarray, vals_a: np.ndarray,
-                 vals_b: np.ndarray):
-        import jax.numpy as jnp
-
-        self.n = int(keys.size)
-        self.keys = jnp.asarray(np.ascontiguousarray(keys, np.uint64))
-        self.vals_a = jnp.asarray(np.ascontiguousarray(vals_a, np.uint32))
-        self.vals_b = jnp.asarray(np.ascontiguousarray(vals_b, np.uint32))
-
-    def tree(self):
-        return (self.keys, self.vals_a, self.vals_b)
-
-    def lookup2_sorted(self, q):
-        return self.lookup2_sorted_with(self.tree(), q)
-
-    def lookup2_sorted_with(self, tree, q):
-        import jax.numpy as jnp
-
-        keys, va, vb = tree
-        if self.n == 0:
-            z = jnp.zeros(q.shape, jnp.uint32)
-            return z, z
-        idx = jnp.searchsorted(keys, q)
-        idx_c = jnp.minimum(idx, self.n - 1)
-        hit = keys[idx_c] == q
-        return (jnp.where(hit, va[idx_c], jnp.uint32(0)),
-                jnp.where(hit, vb[idx_c], jnp.uint32(0)))
-
-
-def build_sortjoin_union_table(keys_a, vals_a, keys_b, vals_b, k: int,
-                               query_windows: int):
-    """Build the UNION sorted-join table over two host DBs: one probe
-    returns (value_a, value_b) — the read+asm pair every getK needs
-    (merfin-globals.C:101-110).  On accelerators this is the v4 kernel
-    with eight value planes; no v1 analog exists (the union path is
-    fence-narrowing territory: merfin tables are far larger than one
-    dispatch's query count, and small tables are cheap either way)."""
-    import jax
-
-    from merfin_tpu.ops.join_kernel4 import SortJoinUnionV4, union_merge_np
-
-    if jax.default_backend() == "cpu":
-        return _JnpSortJoin2(*union_merge_np(keys_a, vals_a, keys_b, vals_b))
-    return SortJoinUnionV4(keys_a, vals_a, keys_b, vals_b, k)
-
-
-def build_sortjoin_table(keys: np.ndarray, vals: np.ndarray, k: int,
-                         query_windows: int, prefer: str = "auto"):
-    """Build the sorted-join table for (keys, vals) given the caller's
-    per-dispatch query count.  keys/vals are HOST arrays (never fetch a
-    device table back over the link to re-pack it).  ``prefer`` pins the
-    kernel ("v1"/"v4") when the caller knows better than the ratio rule
-    (e.g. -completeness streams the whole key space, v4's fence
-    narrowing territory regardless of ratio)."""
-    import jax
-
-    from merfin_tpu.ops.join_kernel import SortJoinTable
-    from merfin_tpu.ops.join_kernel4 import SortJoinTableV4
-
-    if jax.default_backend() == "cpu":
-        return _JnpSortJoin(keys, vals)
-    if prefer == "v1":
-        cls = SortJoinTable
-    elif prefer == "v4":
-        cls = SortJoinTableV4
-    else:
-        ratio = keys.size / max(int(query_windows), 1)
-        cls = SortJoinTable if ratio <= 2 else SortJoinTableV4
-    return cls(keys, vals, k)
+        return probe_sorted(*tree, q)

@@ -1,6 +1,6 @@
 """The full multi-chip -hist/-dump step: data-parallel chunks over the
 "d" mesh axis, table-parallel lookups over "t", collective-merged
-accumulators — the TPU equivalent of merfin's entire parallel stack
+accumulators — one collective program for merfin's entire parallel stack
 (sweatShop pipeline + OpenMP + Slurm scatter-gather, SURVEY.md §2.3).
 
 Each device holds one table shard and one slice of the chunk batch.
@@ -26,8 +26,7 @@ from merfin_tpu.modes.engine import (NBINS, fold_hist_state,  # noqa: F401  (zer
                                      two_hist_by_sort, zero_hist_state)
 from merfin_tpu.ops.kmer_ops import (kmer_windows, canonical_and_mult,  # noqa: F401  (canonical_and_mult re-exported for step callers)
                                      unpack_transfer, seg_from_marks)
-from merfin_tpu.parallel.sharded import (ShardedLookup, _local_probe,  # noqa: F401
-                                         dual_probe_local)
+from merfin_tpu.parallel.sharded import ShardedLookup, dual_probe_local
 from merfin_tpu.score.kover import kover_parts
 
 
@@ -74,7 +73,7 @@ def make_hist_step(
     @partial(
         shard_map,
         mesh=mesh,
-        check_vma=False,   # Pallas calls inside (rec probes)
+        check_vma=False,
         in_specs=(
             *read_lookup.in_specs(),      # read table shard
             *asm_lookup.in_specs(),       # asm table shard
@@ -189,7 +188,7 @@ def make_hist_group_step(
     @partial(
         shard_map,
         mesh=mesh,
-        check_vma=False,   # Pallas calls inside (rec probes)
+        check_vma=False,
         in_specs=(
             *read_lookup.in_specs(),
             *asm_lookup.in_specs(),
@@ -206,11 +205,10 @@ def make_hist_group_step(
             codes = unpack_transfer(data[0], data[1], pack_chunk + k - 1)
             seg = seg_from_marks(data[2], data[3], pack_chunk)
         fmer, rmer, valid = kmer_windows(codes, k)
-        # seg rides the probe's sort as a carry (the engine group path's
-        # trick, modes/engine.py:_lookup_kvals_sorted_seg)
-        read_v, asm_v, valid, seg = dual_probe_local(
+        read_v, asm_v, valid = dual_probe_local(
             read_lookup, asm_lookup, (rt0, rt1), (at0, at1),
-            fmer, rmer, valid, k, carries=(seg.astype(jnp.int32),))
+            fmer, rmer, valid, k)
+        seg = seg.reshape(-1)
 
         read_k, prob, overflow = value_map.lookup_jnp(read_v, (rk_map, pr_map))
         asm_k = asm_v.astype(jnp.float64)
@@ -221,8 +219,7 @@ def make_hist_group_step(
         is_undr = valid & (read_k > 0) & (asm_k > read_k)
         is_over = valid & (read_k > 0) & ~is_undr
 
-        # shared sort-based seg reduction (per-window bincount lowers to
-        # a scatter-add, ~10x a sort on TPU — docs/PERF.md)
+        # shared sort-based seg reduction (modes/engine.py)
         from merfin_tpu.modes.engine import seg_counts_by_sort
 
         kasm_seg, kmis_seg = seg_counts_by_sort(
@@ -283,7 +280,7 @@ def make_completeness_step(mesh, asm_lookup: ShardedLookup, value_map):
     @partial(
         shard_map,
         mesh=mesh,
-        check_vma=False,   # Pallas calls inside (rec probes)
+        check_vma=False,
         in_specs=(
             *asm_lookup.in_specs(),       # asm table shard
             P(), P(),                     # value map (replicated)
@@ -293,9 +290,8 @@ def make_completeness_step(mesh, asm_lookup: ShardedLookup, value_map):
     )
     def step(at0, at1, rk_map, pr_map, rkeys, rvals, rmask):
         # read-DB rows arrive ALREADY sorted per device (MKDB slices are
-        # sorted on disk, padding keys are u64::MAX): the sorted-join
-        # probe needs no device sort at all
-        asm_v = jax.lax.psum(asm_lookup.probe_sorted_local(
+        # sorted on disk, padding keys are u64::MAX): a coherent search
+        asm_v = jax.lax.psum(asm_lookup.probe_local(
             (at0, at1), rkeys.reshape(-1)), "t").reshape(rkeys.shape)
         read_k, _, _ = value_map.lookup_jnp(
             rvals.astype(jnp.uint64), (rk_map, pr_map))
@@ -349,7 +345,7 @@ def make_dump_step(
     @partial(
         shard_map,
         mesh=mesh,
-        check_vma=False,   # Pallas calls inside (rec probes)
+        check_vma=False,
         in_specs=(
             *read_lookup.in_specs(),
             *asm_lookup.in_specs(),
@@ -366,11 +362,10 @@ def make_dump_step(
             codes = unpack_transfer(data[0], data[1], pack_chunk + k - 1)
         fmer, rmer, valid = kmer_windows(codes, k)
         shape = fmer.shape
-        # positional: sorted-join probes restore window order by the
-        # carried index (dump emits per-position rows, merfin.C:384)
+        # positional: dump emits per-position rows (merfin.C:384)
         read_v, asm_v, valid_f = dual_probe_local(
             read_lookup, asm_lookup, (rt0, rt1), (at0, at1),
-            fmer, rmer, valid, k, positional=True)
+            fmer, rmer, valid, k)
         read_v = read_v.reshape(shape)
         asm_v = asm_v.reshape(shape)
         valid = valid_f.reshape(shape)

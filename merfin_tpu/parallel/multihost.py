@@ -37,12 +37,9 @@ def init(coordinator: str | None = None, num_processes: int | None = None,
 
     if num_processes is None or num_processes <= 1:
         return
-    # cross-process CPU collectives need the gloo transport (no-op for
-    # TPU backends, which use their own ICI/DCN collectives)
-    try:
-        jax.config.update("jax_cpu_collectives_implementation", "gloo")
-    except Exception:
-        pass
+    # cross-process CPU collectives need the gloo transport (GPU
+    # backends use their own collectives)
+    jax.config.update("jax_cpu_collectives_implementation", "gloo")
     jax.distributed.initialize(
         coordinator_address=coordinator,
         num_processes=num_processes,

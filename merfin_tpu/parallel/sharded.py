@@ -7,8 +7,8 @@ Here the table is hash-partitioned by sorted key range across the mesh's
 broadcasts the query batch along "t"; every device probes its local
 sorted shard (misses cost one clipped binary search) and the per-device
 partial values — zero everywhere except the owner shard — combine with a
-single psum over ICI.  Queries sharded along the "d" (data) axis stay
-sharded: the collective only rides the table axis.
+single psum over the device interconnect.  Queries sharded along the "d"
+(data) axis stay sharded: the collective only rides the table axis.
 
 This expresses merfin's whole parallel inventory (sweatShop pipeline,
 OpenMP slices, Slurm scatter — SURVEY.md §2.3) as one pjit'able program.
@@ -71,34 +71,20 @@ def partition_rows(keys: np.ndarray, vals: np.ndarray, shards: int):
 class ShardedLookup:
     """Device-mesh resident exact lookup (value 0 for absent keys).
 
-    Two on-device shard formats, one probe contract:
-
-      * ``plane`` — raw sorted (keys u64, vals u32) rows per shard,
-        probed with a vectorized binary search (jnp.searchsorted).  The
-        CPU-backend default (the Pallas kernels only interpret there).
-      * ``rec``  — v4 sorted-join records (ops/join_kernel4.py): u8 key/
-        value byte planes + fence rows, 12.06 B/key (same HBM as plane),
-        probed by the gather-free Pallas kernel at 25-50M lookups/s/chip
-        vs ~2-7M for searchsorted (docs/PERF.md).  The accelerator
-        default — the mesh data plane rides the same kernels as the
-        single-chip engine.
-
-    Probes require SORTED queries (consumers sort once per step and
-    carry segment/index planes through the sort; searchsorted accepts
-    sorted streams too, so both formats share every call site).
+    Each "t" shard holds raw sorted (keys u64, vals u32) rows, padded
+    with u64::MAX keys, probed in place with the binary search of
+    ops/sortjoin.py; queries may arrive in any order.
     """
 
     mesh: object
-    fmt: str       # "plane" | "rec"
-    arrays: tuple  # plane: (keys[T,M], vals[T,M]); rec: (rec[T,S,R,128], seg_first[T,S])
+    arrays: tuple  # (keys[T, M], vals[T, M])
     n: int
     k: int
     _jit_lookup: object = dataclasses.field(default=None, repr=False,
                                             compare=False)
 
     @classmethod
-    def build(cls, db_or_arrays, mesh, min_v: int = 0, max_v: int = 2**64 - 1,
-              fmt: str | None = None):
+    def build(cls, db_or_arrays, mesh, min_v: int = 0, max_v: int = 2**64 - 1):
         """Build the sharded table over ``mesh`` (single- or multi-host).
 
         Each shard row is materialized lazily in the device_put callback,
@@ -111,9 +97,6 @@ class ShardedLookup:
         ensure_x64()
         import jax
         from jax.sharding import NamedSharding, PartitionSpec as P
-
-        if fmt is None:
-            fmt = "plane" if jax.default_backend() == "cpu" else "rec"
 
         if isinstance(db_or_arrays, KmerDB):
             keys = db_or_arrays.keys   # memmap: slices read lazily
@@ -152,7 +135,7 @@ class ShardedLookup:
             m_pad = max(1, max(bounds[i + 1] - bounds[i] for i in range(t)))
 
         # Each shard's rows feed TWO make_array_from_callback calls
-        # (keys+vals, or rec+seg_first); memoize the filtered read so a
+        # (keys, vals); memoize the filtered read so a
         # shard's memmap is touched once, freed after its second use
         # (the design-target tables are 150-200 GB of host I/O).
         src_memo: dict[int, tuple] = {}
@@ -176,61 +159,27 @@ class ShardedLookup:
             src_seen[r] = 1
             return kk, vv
 
-        if fmt == "rec":
-            from merfin_tpu.ops.join_kernel4 import (REC_ROWS, LANES, SEG,
-                                                     build_rec_np)
-
-            pad = ((m_pad + SEG - 1) // SEG + 1) * SEG
-            pad = max(2 * SEG, 1 << (pad - 1).bit_length())
-            n_segs = pad // SEG
-
-            def shard_rec(index):
+        def shard_rows(which, fill, dtype):
+            def cb(index):
                 rows = range(*index[0].indices(t))
-                out = np.zeros((len(rows), n_segs, REC_ROWS, LANES),
-                               np.uint8)
+                cols = index[1].indices(m_pad)
+                assert cols[0] == 0 and cols[1] == m_pad
+                out = np.full((len(rows), m_pad), fill, dtype=dtype)
                 for j, r in enumerate(rows):
-                    out[j] = build_rec_np(*shard_src(r), pad=pad)[0]
+                    row = shard_src(r)[which]
+                    out[j, : row.shape[0]] = row
                 return out
+            return cb
 
-            def shard_seg_first(index):
-                from merfin_tpu.ops.join_kernel4 import seg_first_np
+        sh = NamedSharding(mesh, P("t", None))
+        arrays = (
+            jax.make_array_from_callback(
+                (t, m_pad), sh, shard_rows(0, PAD_KEY, np.uint64)),
+            jax.make_array_from_callback(
+                (t, m_pad), sh, shard_rows(1, 0, np.uint32)),
+        )
 
-                rows = range(*index[0].indices(t))
-                out = np.zeros((len(rows), n_segs), np.uint64)
-                for j, r in enumerate(rows):
-                    out[j] = seg_first_np(shard_src(r)[0], n_segs)
-                return out
-
-            sh4 = NamedSharding(mesh, P("t", None, None, None))
-            sh2 = NamedSharding(mesh, P("t", None))
-            arrays = (
-                jax.make_array_from_callback(
-                    (t, n_segs, REC_ROWS, LANES), sh4, shard_rec),
-                jax.make_array_from_callback(
-                    (t, n_segs), sh2, shard_seg_first),
-            )
-        else:
-            def shard_rows(which, fill, dtype):
-                def cb(index):
-                    rows = range(*index[0].indices(t))
-                    cols = index[1].indices(m_pad)
-                    assert cols[0] == 0 and cols[1] == m_pad
-                    out = np.full((len(rows), m_pad), fill, dtype=dtype)
-                    for j, r in enumerate(rows):
-                        row = shard_src(r)[which]
-                        out[j, : row.shape[0]] = row
-                    return out
-                return cb
-
-            sh = NamedSharding(mesh, P("t", None))
-            arrays = (
-                jax.make_array_from_callback(
-                    (t, m_pad), sh, shard_rows(0, PAD_KEY, np.uint64)),
-                jax.make_array_from_callback(
-                    (t, m_pad), sh, shard_rows(1, 0, np.uint32)),
-            )
-
-        return cls(mesh=mesh, fmt=fmt, arrays=arrays, n=int(n), k=int(k))
+        return cls(mesh=mesh, arrays=arrays, n=int(n), k=int(k))
 
     # -- shard_map plumbing ------------------------------------------------
 
@@ -238,49 +187,23 @@ class ShardedLookup:
         """PartitionSpecs of ``arrays`` for a shard_map over ("d", "t")."""
         from jax.sharding import PartitionSpec as P
 
-        if self.fmt == "rec":
-            return (P("t", None, None, None), P("t", None))
         return (P("t", None), P("t", None))
 
-    def probe_sorted_local(self, tree_local, qs):
-        """Probe THIS device's shard with a SORTED flat u64 query array;
-        misses/pad return 0, so callers psum over "t".  ``tree_local`` is
-        the per-device view of ``arrays`` inside shard_map (leading axis
-        1).  Sub-QB-multiple streams pad with u64::MAX sentinels (stays
-        sorted; production chunks are pow2 >= 4096 so this is test-shape
-        plumbing, not a hot-path copy)."""
-        if self.fmt == "rec":
-            import jax.numpy as jnp
+    def probe_local(self, tree_local, q):
+        """Probe THIS device's shard with a u64 query array (any order,
+        any shape); misses/pad return 0, so callers psum over "t".
+        ``tree_local`` is the per-device view of ``arrays`` inside
+        shard_map (leading axis 1)."""
+        from merfin_tpu.ops.sortjoin import probe_sorted
 
-            from merfin_tpu.ops.join_kernel4 import QB, join_sorted_rec
-
-            rec, seg_first = tree_local
-            m = qs.shape[0]
-            pad = (-m) % QB
-            if pad:
-                qs = jnp.concatenate(
-                    [qs, jnp.full(pad, PAD_KEY, jnp.uint64)])
-            return join_sorted_rec(rec[0], seg_first[0], qs)[:m]
         keys, vals = tree_local
-        return _local_probe(keys[0], vals[0], qs)
+        return probe_sorted(keys[0], vals[0], q)
 
     def _probe_psum(self, tree_local, q):
-        """Any-shape probe inside shard_map: sort, probe, unsort, psum.
-        (Consumers with a sorted stream use probe_sorted_local to skip
-        the per-probe sort/unsort.)"""
+        """Any-shape probe inside shard_map, combined over "t"."""
         import jax
-        import jax.numpy as jnp
 
-        flat = q.reshape(-1)
-        if self.fmt == "rec":
-            idx = jnp.arange(flat.shape[0], dtype=jnp.int32)
-            qs, idx_s = jax.lax.sort((flat, idx), num_keys=1)
-            vs = self.probe_sorted_local(tree_local, qs)
-            _, vu = jax.lax.sort((idx_s, vs), num_keys=1)
-            out = vu
-        else:
-            out = self.probe_sorted_local(tree_local, flat)
-        return jax.lax.psum(out.reshape(q.shape), "t")
+        return jax.lax.psum(self.probe_local(tree_local, q), "t")
 
     def lookup(self, q):
         """Replicated-in, replicated-out lookup of a query array."""
@@ -290,7 +213,7 @@ class ShardedLookup:
         @partial(
             shard_map,
             mesh=self.mesh,
-            check_vma=False,   # Pallas calls inside (rec probes)
+            check_vma=False,
             in_specs=(*self.in_specs(), P()),
             out_specs=P(),
         )
@@ -314,7 +237,7 @@ class ShardedLookup:
             @partial(
                 shard_map,
                 mesh=self.mesh,
-                check_vma=False,   # Pallas calls inside (rec probes)
+                check_vma=False,
                 in_specs=(*self.in_specs(), P()),
                 out_specs=P(),
             )
@@ -340,7 +263,7 @@ class ShardedLookup:
         @partial(
             shard_map,
             mesh=self.mesh,
-            check_vma=False,   # Pallas calls inside (rec probes)
+            check_vma=False,
             in_specs=(*self.in_specs(), qspec),
             out_specs=qspec,
         )
@@ -351,79 +274,27 @@ class ShardedLookup:
 
 
 def dual_probe_local(read_lookup: ShardedLookup, asm_lookup: ShardedLookup,
-                     r_tree, a_tree, fmer, rmer, valid, k: int,
-                     carries=(), positional: bool = False):
+                     r_tree, a_tree, fmer, rmer, valid, k: int):
     """Dual sharded-table probe inside a shard_map body.
 
-    Returns FLAT (read_v u64, asm_v u64, valid, carries...) after the
+    Returns FLAT (read_v u64, asm_v u64, valid) in window order after the
     psum over "t", with fmer+rmer palindrome doubling applied for even k
-    (merfin-globals.C:101-110).  On ``rec`` tables the queries ride the
-    Pallas sorted-join kernels: one device sort, probes, and either
-    sorted order (reduction consumers; ``carries`` arrays follow the
-    permutation, invalid windows become u64::MAX sentinels exactly like
-    the engine's sorted path) or restored window order
-    (``positional=True``, for -dump/-variants).  ``plane`` tables probe
-    in place (searchsorted), order unchanged.
+    (merfin-globals.C:101-110).
     """
     import jax
     import jax.numpy as jnp
 
     flat = lambda x: x.reshape(-1)
-    if read_lookup.fmt != "rec":
-        canon = jnp.minimum(fmer, rmer)
-        mult = (jnp.where(fmer == rmer, jnp.uint64(2), jnp.uint64(1))
-                if k % 2 == 0 else None)
-        read_v = jax.lax.psum(
-            read_lookup.probe_sorted_local(r_tree, flat(canon)), "t")
-        asm_v = jax.lax.psum(
-            asm_lookup.probe_sorted_local(a_tree, flat(canon)), "t")
-        read_v = read_v.astype(jnp.uint64)
-        asm_v = asm_v.astype(jnp.uint64)
-        if mult is not None:
-            read_v = read_v * flat(mult)
-            asm_v = asm_v * flat(mult)
-        return (read_v, asm_v, flat(valid), *[flat(c) for c in carries])
-
-    sentinel = jnp.uint64(0xFFFFFFFFFFFFFFFF)
-    canon = flat(jnp.where(valid, jnp.minimum(fmer, rmer), sentinel))
-    ops = [canon]
-    even = k % 2 == 0
-    if even and not positional:
-        ops.append(flat(jnp.where(fmer == rmer, jnp.uint32(2),
-                                  jnp.uint32(1))))
-    if positional:
-        ops.append(jnp.arange(canon.shape[0], dtype=jnp.int32))
-    else:
-        ops += [flat(c) for c in carries]
-    sorted_ops = jax.lax.sort(tuple(ops), num_keys=1)
-    qs, rest = sorted_ops[0], list(sorted_ops[1:])
-    read_s = jax.lax.psum(
-        read_lookup.probe_sorted_local(r_tree, qs), "t")
-    asm_s = jax.lax.psum(
-        asm_lookup.probe_sorted_local(a_tree, qs), "t")
-
-    if positional:
-        # restore window order by the carried index (u32 values sort as
-        # operands; mult/valid/carries are recomputed positionally)
-        idx_s = rest.pop(0)
-        _, read_u, asm_u = jax.lax.sort((idx_s, read_s, asm_s), num_keys=1)
-        read_v = read_u.astype(jnp.uint64)
-        asm_v = asm_u.astype(jnp.uint64)
-        if even:
-            mult = flat(jnp.where(fmer == rmer, jnp.uint64(2),
-                                  jnp.uint64(1)))
-            read_v = read_v * mult
-            asm_v = asm_v * mult
-        return (read_v, asm_v, flat(valid), *[flat(c) for c in carries])
-
-    read_v = read_s.astype(jnp.uint64)
-    asm_v = asm_s.astype(jnp.uint64)
-    if even:
-        mult_s = rest.pop(0)
-        read_v = read_v * mult_s
-        asm_v = asm_v * mult_s
-    valid_s = qs != sentinel
-    return (read_v, asm_v, valid_s, *rest)
+    canon = flat(jnp.minimum(fmer, rmer))
+    read_v = jax.lax.psum(read_lookup.probe_local(r_tree, canon), "t")
+    asm_v = jax.lax.psum(asm_lookup.probe_local(a_tree, canon), "t")
+    read_v = read_v.astype(jnp.uint64)
+    asm_v = asm_v.astype(jnp.uint64)
+    if k % 2 == 0:
+        mult = flat(jnp.where(fmer == rmer, jnp.uint64(2), jnp.uint64(1)))
+        read_v = read_v * mult
+        asm_v = asm_v * mult
+    return read_v, asm_v, flat(valid)
 
 
 def put_global(arr: np.ndarray, mesh, spec):
@@ -444,14 +315,3 @@ def mesh_spans_hosts(mesh) -> bool:
 
     return any(d.process_index != jax.process_index()
                for d in mesh.devices.flat)
-
-
-def _local_probe(keys, vals, q):
-    """Binary-search probe of a local sorted shard; 0 where absent."""
-    import jax.numpy as jnp
-
-    qs = q.reshape(-1)
-    idx = jnp.searchsorted(keys, qs)
-    idx_c = jnp.minimum(idx, keys.shape[0] - 1)
-    hit = keys[idx_c] == qs
-    return jnp.where(hit, vals[idx_c], jnp.uint32(0)).reshape(q.shape)

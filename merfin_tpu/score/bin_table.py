@@ -1,11 +1,11 @@
-"""Host-precomputed histogram bin tables — exact C float semantics on TPU.
+"""Host-precomputed histogram bin tables — exact C float semantics.
 
 The -hist bin index trunc((asmK/readK - 1 + 0.1) / 0.2)
-(merfin-histogram.C:72,85) is decided by IEEE f64 division; this TPU's
-emulated f64 (~48-bit) can land on the other side of a truncation
-boundary for ratios like 3/2 (w = 3.0000000000000004 in IEEE).  Both
-readK and asmK are integer-valued, so the whole decision is tabulated on
-the host with exact semantics and gathered on device:
+(merfin-histogram.C:72,85) is decided by IEEE f64 division and sits on a
+truncation boundary for ratios like 3/2 (w = 3.0000000000000004 in
+IEEE), where any other evaluation order lands one bin away.  Both readK
+and asmK are integer-valued, so the whole decision is tabulated on the
+host with the reference's expression and gathered on device:
 
     undr_table[r, a] = C bin of (readK=r, asmK=a)   r in [0,RMAX], a in [0,AMAX]
     over_table[a, r] = C bin of (readK=r, asmK=a)   (the readK>asmK side)
@@ -70,14 +70,10 @@ class BinTable:
         exact_undr = undr_t[rc * (self.amax + 1) + ac].astype(jnp.int32)
         exact_over = over_t[rc * (self.amax + 1) + ac].astype(jnp.int32)
 
-        # Out-of-range fallback, computed in f32: native-rate divisions
-        # (emulated ~48-bit f64 costs ~50 ops/division on this TPU, and
-        # i64 div lowers to a long sequence too) that are IEEE-f32
-        # DETERMINISTIC on every backend.  Fallback bins were never
-        # IEEE-f64-exact on TPU and remain counted (bin_fallbacks);
-        # boundary-ratio pairs may land one bin away from the
-        # reference's f64 expression — the same caveat the emulated-f64
-        # path carried, now backend-uniform.  Handles inf readK
+        # Out-of-range fallback, computed in f32: IEEE-f32 divisions are
+        # DETERMINISTIC on every backend.  Fallback bins are counted
+        # (bin_fallbacks); boundary-ratio pairs may land one bin away
+        # from the reference's f64 expression.  Handles inf readK
         # (peak=0) like the float expression always did.
         rf = read_k.astype(jnp.float32)
         af = asm_k.astype(jnp.float32)

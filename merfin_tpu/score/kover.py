@@ -1,9 +1,10 @@
 """Exact QV* excess accumulation (koverCpy) — integer device parts.
 
 The reference accumulates koverCpy += (1 - readK/asmK) * prob per undr
-k-mer in f64 (merfin-histogram.C:81).  This TPU's f64 is emulated at
-~48 bits, so BOTH the per-window term and a device sum of it can differ
-from IEEE doubles.  The fix: never sum floats on the device.  Each undr
+k-mer in f64 (merfin-histogram.C:81), in sequence order.  A device sum
+runs in another order (and another backend may compute the per-window
+term differently), so it can differ from the reference's doubles in the
+last bits.  The fix: never sum floats on the device.  Each undr
 window's term is a pure function of small integers —
 
   * in-prob-table values (raw v <= len(table)): term depends only on
@@ -52,9 +53,9 @@ def kover_parts(read_v, read_k, asm_k, prob, is_undr, vmaxp: int,
 
     ``r_max``/``a_max`` are TRACE-TIME bounds (largest possible readK /
     asmK): when they prove the float fallback unreachable (no prob
-    table, readK < RMAX_PLAIN, asmK <= amax), the per-window emulated-
-    f64 term is not built at all, and a small enough r_max drops the
-    prefix cumsum from emulated i64 to native i32.
+    table, readK < RMAX_PLAIN, asmK <= amax), the per-window f64 term
+    is not built at all, and a small enough r_max narrows the prefix
+    cumsum from i64 to i32.
     """
     import jax
     import jax.numpy as jnp
@@ -111,8 +112,7 @@ def kover_parts(read_v, read_k, asm_k, prob, is_undr, vmaxp: int,
     runs_next = bp[1: M + 1] if M < W else jnp.append(bp[1:M], np.int32(W))
     lens = (runs_next - runs_pos).astype(jnp.int64)       # pads: 0
     kvals = ks[jnp.minimum(runs_pos, W - 1)].astype(jnp.int32)
-    # native-i32 prefix sum when the trace-time bound proves no overflow
-    # (i64 scans are emulated as i32 pairs on this TPU)
+    # i32 prefix sum when the trace-time bound proves no overflow
     cdt = (jnp.int32 if r_max is not None and r_max * W < 2**31
            else jnp.int64)
     csr = jnp.pad(jnp.cumsum(rs.astype(cdt)), (1, 0))

@@ -1,4 +1,4 @@
-"""Exact k-mer lookup tables — the TPU replacement for merylExactLookup.
+"""Exact k-mer lookup tables — the device replacement for merylExactLookup.
 
 The reference keeps a prefix-indexed bit-packed table in host RAM and does
 one pointer-chasing probe per k-mer (kmers-exact.C via merfin-globals.C:
@@ -53,14 +53,13 @@ def _pick_bucket_bits(n: int, k: int) -> int:
 class DeviceLookup:
     """Sorted-array + prefix-bucket exact lookup, resident in device HBM.
 
-    Hot-path strategy ("windowed"): one scalar gather of the bucket
-    offset, one W-wide contiguous slice-gather of candidate keys, an
-    equality compare across the window, and one scalar value gather.
-    Measured on v5e, wide slice-gathers cost barely more than scalar
-    gathers, so this is ~3x fewer HBM round-trips than a binary search
-    (which pays a full random-gather latency per step).  Bucket bits are
-    grown until every bucket fits in the window; pathological skew falls
-    back to the iterative binary-search path.
+    Hot-path strategy ("block"): one scalar gather of the bucket offset,
+    a gather of the few W-wide contiguous key blocks that hold the
+    bucket, an equality compare across them, and the matching value
+    blocks — a fixed number of dependent memory round trips, where a
+    binary search pays one per step.  Bucket bits are grown until every
+    bucket fits in the window; pathological skew falls back to the
+    iterative binary-search path ("bsearch").
 
     Correctness note: candidates for query q all live in [off[b],
     off[b+1]) where b is q's prefix; entries outside that range have a
@@ -123,8 +122,7 @@ class DeviceLookup:
         # Single resident copy: the block strategy's [nblocks, W] view is
         # a free row-major reshape inside the jitted probe (keeping a
         # separate 2-D device copy doubled the table's HBM footprint).
-        # Placement is LAZY: a -hist run on the sorted-join path never
-        # touches these, so the gather table then costs no HBM at all.
+        # Placement is LAZY: the table reaches the device on first use.
         self._put_fn = put
         self._keys_host = keys_p
         self._vals_host = vals_p
@@ -132,14 +130,10 @@ class DeviceLookup:
         self._keys_dev = None
         self._vals_dev = None
         self._offsets_dev = None
-        # unpadded host rows, for join-table builders (modes/engine.py)
-        self.keys_np = keys
-        self.vals_np = vals
         self.nblocks = pad_to // W
 
     # Once placed, the padded host copy is DROPPED (~12 bytes/key of
-    # host RSS on billion-kmer tables); keys_np/vals_np (unpadded,
-    # shared with the DB) stay for the join-table builders.
+    # host RSS on billion-kmer tables).
 
     @property
     def keys(self):

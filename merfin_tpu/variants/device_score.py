@@ -13,8 +13,7 @@ path's missing count numM and (for -polish ties) the delta sum totdk
 (varMer.C:150-467,648-659).  So the device program reduces to TWO
 scalars per path with sorted segment sums and ships [P] arrays back —
 16 bytes/path instead of 16 bytes/WINDOW (a 32768-path comb=15 cluster
-returns 512 KB instead of ~270 MB, which is what makes fused scoring
-win on a remotely-attached chip).
+returns 512 KB instead of ~270 MB).
 
 Exactness: numM is exact on every backend — it is an integer segment
 count, with the always-missing separator/tail windows subtracted on the
@@ -22,9 +21,10 @@ host from known span arithmetic.  The -filter/-better/-strict/-loose
 selectors consume ONLY numM and sequence lengths, so fused device
 scoring is byte-identical for those modes and is the default there.
 -polish tie-breaks compare (int-truncated) f64 sums of dkstr
-(varMer.C:427-447): the device segment sum may differ from the host
-scorer's np.sum in final ulps (and accelerator f64 is emulated at
-~48 bits), so -polish keeps the host scorer unless -devscore is given.
+(varMer.C:427-447): with a -prob table the device segment sum may
+differ from the host scorer's np.sum in final ulps (another summation
+order), so -polish with -prob keeps the host scorer unless -devscore is
+given; without one the sums are integers and exact.
 
 DeviceScorer probes single-device gather tables; ShardedScorer runs the
 same program under shard_map over a ("d", "t") mesh, probing table
@@ -74,7 +74,7 @@ def _stream_math(value_map, vm, read_v, asm_v, valid, adjust, path_start):
     ValueMap.device_arrays_scorer): missing and the delta-multiplicity
     difference |readK-asmK| - |readK-asmK'| are pure i64 arithmetic,
     exactly the host scorer's values (its f64 holds the same integers),
-    and skip the emulated-f64 elementwise chain entirely."""
+    and skip the f64 elementwise chain entirely."""
     import jax
     import jax.numpy as jnp
 
@@ -120,8 +120,8 @@ _RED = 512   # row width of the two-level prefix reduction
 
 def _boundary_reduce(missing, dkstr, b_start, b_end):
     """Per-path (missing count, dkstr sum) as prefix differences at the
-    path boundaries — scatter-free (TPU scatter costs ~10x a scan) and
-    EXACTLY the host scorer's slice sums on the integer path: num_m is
+    path boundaries — scatter-free and EXACTLY the host scorer's slice
+    sums on the integer path: num_m is
     an integer prefix difference, and integer dkstr (no -prob table)
     sums exactly in any association.  With a prob table totdk may
     differ from a direct slice sum in final ulps (device f64 either
@@ -129,8 +129,7 @@ def _boundary_reduce(missing, dkstr, b_start, b_end):
 
     Prefixes are two-level: a cumsum WITHIN 512-wide rows (vectorized
     across rows, scan depth 9) + a tiny row-total cumsum + 2 small
-    gathers per boundary — a full-stream f64 cumsum costs ~322 ms per
-    4M windows on this chip, more than the joins (docs/PERF.md r4)."""
+    gathers per boundary, instead of one full-stream cumsum."""
     import jax.numpy as jnp
 
     def prefix_fn(x, acc_dtype):
@@ -191,25 +190,23 @@ class _FusedScorer:
     One dispatch gathers [windows, rows, W] candidate blocks per table
     (the block lookup strategy, table/lookup.py), so windows per
     dispatch are capped like the engine's gather path (batch x chunk =
-    2^21; an 8M-window dispatch allocates ~32 GB of takes and OOMs a
-    16 GB HBM).  Streams split at PATH boundaries — paths are
-    independent, so per-span (num_m, totdk) stitch exactly.
+    2^21; the take temporaries grow ~4 KB per window).  Streams split
+    at PATH boundaries — paths are independent, so per-span
+    (num_m, totdk) stitch exactly.
     """
 
     MAX_WINDOWS = 1 << 21
 
     def _span_dispatch(self, codes, adjust, starts, nis):
         """Pack + transfer + ASYNC dispatch of one span (no fetch).
-        Inputs cross the link via explicit device_put: the jit's
-        numpy-arg staging path costs far more than the transfer itself
-        on this backend (docs/PERF.md r4)."""
+        Inputs go to the device by explicit device_put on the calling
+        (possibly worker) thread, so the transfer overlaps other work."""
         import jax
 
         p, n, planes, vbits, adj_bits, mark_bits, b_start, b_end = \
             _pack_inputs(codes, adjust, starts, nis, self.k)
-        args = [planes, vbits, adj_bits, mark_bits, b_start, b_end]
-        if jax.default_backend() != "cpu":
-            args = [jax.device_put(a) for a in args]
+        args = [jax.device_put(a) for a in
+                (planes, vbits, adj_bits, mark_bits, b_start, b_end)]
         return nis.shape[0], self._dispatch(p, *args)
 
     def _span_fetch(self, handle):
@@ -267,11 +264,12 @@ class _FusedScorer:
     def fetch_paths(self, token):
         """Blocking half: (num_m int64 [P], totdk f64 [P]).
 
-        Multi-span tokens on the device path fuse every span's padded
+        Multi-span tokens on the threaded path fuse every span's padded
         results into ONE u64 stream on device and fetch it with a
-        single transfer: per-span np.asarray calls each pay a full
-        link round trip (3+ per span on this rig — the r5 heavy
-        profile), a fused fetch pays one."""
+        single transfer: per-span np.asarray calls each pay a device
+        round trip, a fused fetch pays one.  totdk crosses as its raw
+        64-bit pattern (i64 on the integer path, f64 otherwise) and is
+        converted to f64 on the host."""
         P, handles = token
         resolved = []
         for i, j, h in handles:
@@ -281,27 +279,24 @@ class _FusedScorer:
         num_m = np.zeros(P, np.int64)
         totdk = np.zeros(P)
         if len(resolved) > 1 and self._THREADED_SPANS:
-            try:
-                import jax
-                import jax.numpy as jnp
+            import jax
+            import jax.numpy as jnp
 
-                parts = []
-                for _, _, (Pn, (nm, td, ov)) in resolved:
-                    parts += [nm.astype(jnp.uint64),
-                              jax.lax.bitcast_convert_type(
-                                  td.astype(jnp.float64), jnp.uint64),
-                              ov.astype(jnp.uint64).reshape(1)]
-                flat = np.asarray(jnp.concatenate(parts))   # ONE fetch
-                off = 0
-                for i, j, (Pn, (nm, td, ov)) in resolved:
-                    w = int(nm.shape[0])
-                    num_m[i:j] = flat[off: off + Pn].astype(np.int64)
-                    totdk[i:j] = flat[off + w: off + w + Pn].view(np.float64)
-                    self.overflow_values += int(flat[off + 2 * w])
-                    off += 2 * w + 1
-                return num_m, totdk
-            except Exception:   # compile/backend hiccup: per-span fetch
-                pass            # (results are still on device, untouched)
+            parts = []
+            for _, _, (Pn, (nm, td, ov)) in resolved:
+                parts += [nm.astype(jnp.uint64),
+                          jax.lax.bitcast_convert_type(td, jnp.uint64),
+                          ov.astype(jnp.uint64).reshape(1)]
+            flat = np.asarray(jnp.concatenate(parts))   # ONE fetch
+            off = 0
+            for i, j, (Pn, (nm, td, ov)) in resolved:
+                w = int(nm.shape[0])
+                num_m[i:j] = flat[off: off + Pn].astype(np.int64)
+                totdk[i:j] = flat[off + w: off + w + Pn].view(
+                    np.dtype(td.dtype)).astype(np.float64)
+                self.overflow_values += int(flat[off + 2 * w])
+                off += 2 * w + 1
+            return num_m, totdk
         for i, j, h in resolved:
             nm, td = self._span_fetch(h)
             num_m[i:j] = nm
@@ -318,22 +313,13 @@ class _FusedScorer:
 
 
 class DeviceScorer(_FusedScorer):
-    """Scores packed candidate-path streams in one device dispatch.
-
-    ``sortjoin`` (auto: on for accelerator backends) replaces the two
-    gather-strategy table probes (~9.5M lookups/s, issue-rate-bound on
-    XLA's gather — docs/PERF.md) with the gather-free Pallas sorted-join
-    kernels (25-50M/s): sort (canon, window-index) pairs, join both
-    tables on the sorted stream, then restore positional order with a
-    second sort keyed on the carried index.  Values are exact either
-    way, so every selector output is unchanged; it also lifts the span
-    cap 2x (no [windows, R] take temporaries to blow HBM)."""
+    """Scores packed candidate-path streams in one device dispatch."""
 
     _THREADED_SPANS = True
 
     def __init__(self, read_lookup, asm_lookup, k: int, peak: float,
                  prob_table: ProbTable | None, max_value: int | None = None,
-                 exact_max: bool = False, sortjoin: bool | None = None):
+                 exact_max: bool = False):
         ensure_x64()
         import jax
 
@@ -343,26 +329,6 @@ class DeviceScorer(_FusedScorer):
         self.value_map = ValueMap(peak, prob_table, max_value or (1 << 19),
                                   exact_max=exact_max)
         self.overflow_values = 0
-        if sortjoin is None:
-            sortjoin = jax.default_backend() != "cpu"
-        self.sortjoin = bool(sortjoin)
-        self.sortjoin_union = self.sortjoin
-        if self.sortjoin:
-            from merfin_tpu.ops.sortjoin import build_sortjoin_union_table
-
-            # 2^23-window spans halve the per-cluster dispatch count.
-            # The r4 attempt at 2^23 stalled the remote compiler, but
-            # that was the v1 kernel's 128x-padded [g, QB, 1] query
-            # layout; the union-v4 layout is compact and compiles fine
-            # (r5 chip run: heavy 0.734 -> 0.867 clusters/s).
-            self.MAX_WINDOWS = 1 << 23
-            # ONE union table (read+asm merged, two value columns): a
-            # single v4 probe returns both DB values — half the join
-            # passes per span (getK needs both, merfin-globals.C:101-110)
-            self._sj_union = build_sortjoin_union_table(
-                read_lookup.keys_np, read_lookup.vals_np,
-                asm_lookup.keys_np, asm_lookup.vals_np, k,
-                self.MAX_WINDOWS)
         self._impl = jax.jit(self._score_stream, static_argnums=0)
 
     def _score_stream(self, n, trees, vm, planes, vbits,
@@ -377,9 +343,6 @@ class DeviceScorer(_FusedScorer):
         is ~16x fewer input bytes than u8 codes + i64 path_start, and
         the per-path reduction ships ~windows/paths x fewer bytes back.
         """
-        import jax
-        import jax.numpy as jnp
-
         from merfin_tpu.ops.kmer_ops import unpack_transfer
 
         codes = unpack_transfer(planes, vbits, n + self.k - 1)
@@ -387,27 +350,11 @@ class DeviceScorer(_FusedScorer):
                                                self.value_map.has_prob)
         fmer, rmer, valid = kmer_windows(codes, self.k)
         canon, mult = canonical_and_mult(fmer, rmer)
-        if self.sortjoin:
-            # sort -> gather-free join (one union probe: both values) ->
-            # unsort by the carried index; invalid windows become
-            # u64::MAX sentinels (join misses -> value 0, matching the
-            # reference's missing semantics)
-            (u_tree,) = trees
-            canon_q = jnp.where(valid, canon,
-                                jnp.uint64(0xFFFFFFFFFFFFFFFF))
-            idx = jnp.arange(canon.shape[0], dtype=jnp.int32)
-            qs, idx_s = jax.lax.sort((canon_q, idx), num_keys=1)
-            read_s, asm_s = self._sj_union.lookup2_sorted_with(u_tree, qs)
-            _, read_u, asm_u = jax.lax.sort((idx_s, read_s, asm_s),
-                                            num_keys=1)
-            read_v = read_u.astype(np.uint64) * mult
-            asm_v = asm_u.astype(np.uint64) * mult
-        else:
-            r_tree, a_tree = trees
-            read_v = self.read_lookup.lookup_with(
-                r_tree, canon).astype(np.uint64) * mult
-            asm_v = self.asm_lookup.lookup_with(
-                a_tree, canon).astype(np.uint64) * mult
+        r_tree, a_tree = trees
+        read_v = self.read_lookup.lookup_with(
+            r_tree, canon).astype(np.uint64) * mult
+        asm_v = self.asm_lookup.lookup_with(
+            a_tree, canon).astype(np.uint64) * mult
         missing, dkstr, overflow = _stream_math(
             self.value_map, vm, read_v, asm_v, valid, adjust, path_start)
         num_m, totdk = _boundary_reduce(missing, dkstr, b_start, b_end)
@@ -415,10 +362,7 @@ class DeviceScorer(_FusedScorer):
 
     def _dispatch(self, p, planes, vbits, adj_bits, mark_bits,
                   b_start, b_end):
-        if self.sortjoin:
-            trees = (self._sj_union.tree(),)
-        else:
-            trees = (self.read_lookup.tree(), self.asm_lookup.tree())
+        trees = (self.read_lookup.tree(), self.asm_lookup.tree())
         return self._impl(
             p, trees,
             self.value_map.device_arrays_scorer(), planes, vbits,
@@ -477,12 +421,10 @@ class ShardedScorer(_FusedScorer):
             adjust, path_start = _planes_from_bits(adj_bits, mark_bits, p,
                                                    value_map.has_prob)
             fmer, rmer, valid = kmer_windows(codes, k)
-            # positional: the per-window math (adjust plane, stale-prob
-            # fill, path boundaries) is window-ordered, so rec tables
-            # sort + Pallas-join + unsort by carried index
+            # window-ordered: the per-window math (adjust plane,
+            # stale-prob fill, path boundaries) needs positions
             read_v, asm_v, valid = dual_probe_local(
-                rs, As, (rt0, rt1), (at0, at1), fmer, rmer, valid, k,
-                positional=True)
+                rs, As, (rt0, rt1), (at0, at1), fmer, rmer, valid, k)
             missing, dkstr, overflow = _stream_math(
                 value_map, (vm_rk, vm_pr), read_v, asm_v, valid, adjust,
                 path_start)

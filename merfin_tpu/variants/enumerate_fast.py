@@ -22,9 +22,8 @@ coordinates:
   * first-seen dedup by STRING (varMer.C:38-45): exact — 2x64-bit
     weighted hashes + length screen duplicates, byte-compare confirms.
 
-A comb=15 cluster (165,888 paths, ~24M windows) builds in ~0.3 s of
-numpy instead of ~4.5 s of Python-object churn (docs/PERF.md r4); the
-scalar enumerate.py remains the parity oracle (fuzz-tested equal) and
+A comb=15 cluster (165,888 paths, ~24M windows) builds as a few numpy
+passes instead of Python-object churn; the scalar enumerate.py remains the parity oracle (fuzz-tested equal) and
 serves the host scorer / -debug path.
 """
 
@@ -217,8 +216,8 @@ def build_path_block_fast(template: str, ref_idx_list, ref_len_list,
 
     def assemble_native(lib, p_len32, p_src32):
         """One C pass: pieces -> 2-bit codes + per-path hashes
-        (native/fastio.cpp mt_assemble_paths; ~20x the numpy
-        multi-pass on this host, docs/PERF.md r4)."""
+        (native/fastio.cpp mt_assemble_paths) instead of a numpy
+        multi-pass."""
         import ctypes
 
         Pn = p_len32.shape[0]

@@ -20,7 +20,7 @@ over the flat window axis (vectorized numpy on the host, or one fused
 device dispatch via a DeviceScorer/ShardedScorer), and per-path results
 are cut back out as views.  A heavy multiallelic cluster (comb=15 ->
 2^15 paths) is one array program instead of 32768 python-level scoring
-calls — that is the whole point of the TPU design.
+calls — that is the whole point of the device design.
 """
 
 from __future__ import annotations

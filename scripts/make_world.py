@@ -3,9 +3,9 @@
 known substitution errors, a read set, MKDB databases, and a candidate
 VCF (true corrections as multiallelic records + spurious calls).
 
-This is the harness behind the end-to-end numbers in docs/PERF.md:
--polish must select exactly the true corrections; -completeness's
-undrcpy equals n_errors x k; CPU and TPU outputs must match.
+chip_smoke.py's scale phase runs on such a world: -polish must select
+exactly the true corrections, and accelerator and CPU outputs must match.
+Count the databases with `merfin-tpu count` (the script prints how).
 
 Usage:
   make_world.py <outdir> [--length 5000000] [--errors 200] [--coverage 30]
@@ -76,38 +76,46 @@ def main() -> int:
             f.write(block)
 
     # candidate VCF: every true locus gets all three alternative bases
-    # (polish must pick the right one) + spurious calls elsewhere
+    # (polish must pick the right one) + spurious heterozygous calls
+    # elsewhere, which keep the REF allele (0/1: alleles come from the
+    # GT field).  They alternate between substitutions to the base a
+    # read error spells there (alt_of, so some have partial read
+    # support) and 2-base insertions, which no read spells.
     rows = []
-    g_s = genome.tobytes().decode()
+    err_set = set(int(x) for x in err_pos)
     for p in err_pos:
         ref = asm_s[p]
         alts = ",".join(b for b in "ACGT" if b != ref)
-        rows.append((int(p) + 1, ref, alts, 50.0))
+        rows.append((int(p) + 1, ref, alts, 50.0, "1/2/3"))
     clean = rng.integers(args.k, args.length - args.k, size=args.spurious)
-    for p in clean:
+    for i, p in enumerate(clean):
         p = int(p)
-        if p in set(int(x) for x in err_pos):
+        if p in err_set:
             continue
         ref = asm_s[p]
-        alts = ",".join(b for b in "ACGT" if b != ref)
-        rows.append((p + 1, ref, alts, 9.9))
+        if i % 2 == 0:
+            alt = chr(alt_of[ord(ref)])
+        else:
+            alt = ref + "".join("ACGT"[int(x)]
+                                for x in rng.integers(0, 4, size=2))
+        rows.append((p + 1, ref, alt, 9.9, "0/1"))
     rows.sort()
     with open(f"{args.outdir}/cand.vcf", "w") as f:
         f.write("##fileformat=VCFv4.2\n##contig=<ID=sim>\n"
                 "#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\tS\n")
-        for pos, ref, alts, q in rows:
-            f.write(f"sim\t{pos}\t.\t{ref}\t{alts}\t{q}\tPASS\t.\tGT\t1/2/3\n")
+        for pos, ref, alts, q, gt in rows:
+            f.write(f"sim\t{pos}\t.\t{ref}\t{alts}\t{q}\tPASS\t.\tGT\t{gt}\n")
 
     np.save(f"{args.outdir}/err_pos.npy", err_pos)
     np.save(f"{args.outdir}/true_genome_codes.npy", genome)
 
-    from merfin_tpu.count.counter import count_files
-
-    count_files([f"{args.outdir}/reads.fasta"], args.k, f"{args.outdir}/read.mkdb")
-    count_files([f"{args.outdir}/asm.fasta"], args.k, f"{args.outdir}/asm.mkdb")
-    print(f"world ready in {args.outdir}: {args.errors} errors, "
-          f"{n_reads} reads, k={args.k}; suggested -peak: "
-          f"{args.coverage * (args.read_len - args.k + 1) / args.read_len:.1f}")
+    d = args.outdir
+    print(f"world ready in {d}: {args.errors} errors, {n_reads} reads, "
+          f"k={args.k}; suggested -peak: "
+          f"{args.coverage * (args.read_len - args.k + 1) / args.read_len:.1f}"
+          f"\ncount it with:\n"
+          f"  bin/merfin-tpu count k={args.k} {d}/reads.fasta output={d}/read.mkdb\n"
+          f"  bin/merfin-tpu count k={args.k} {d}/asm.fasta output={d}/asm.mkdb")
     return 0
 
 

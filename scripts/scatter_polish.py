@@ -11,7 +11,7 @@ shard 0) — the bcftools-concat step.  Unlike the reference, shards
 reuse one MKDB on shared storage; nothing is reloaded per node
 beyond the memory-mapped arrays.
 
-Run shards however you like (Slurm array, xargs -P, one per TPU host):
+Run shards however you like (Slurm array, xargs -P, one per accelerator host):
 
   scatter_polish.py run --mode polish --shards 8 --shard $I \
       --sequence asm.fa --vcf calls.vcf --readmers read.mkdb \

@@ -1,4 +1,4 @@
-"""TPU-native counter vs the string oracle, incl. chunk-boundary packing."""
+"""Device counter vs the string oracle, incl. chunk-boundary packing."""
 
 import random
 

@@ -165,27 +165,6 @@ def test_cli_mesh_validation(world, capsys):
     assert "needs 81 devices" in capsys.readouterr().err
 
 
-def test_mesh_completeness_rec_matches_single(world, monkeypatch):
-    """Mesh -completeness over rec-format (sorted-join) asm shards ==
-    the single-device run — the accelerator mesh data plane, exercised
-    here in Pallas interpret mode."""
-    from merfin_tpu.parallel import sharded as sh
-
-    orig = sh.ShardedLookup.build.__func__
-    monkeypatch.setattr(
-        sh.ShardedLookup, "build",
-        classmethod(lambda cls, *a, **kw: orig(cls, *a,
-                                               **{**kw, "fmt": "rec"})))
-    log1, log2 = io.StringIO(), io.StringIO()
-    r1 = run_completeness(world["read_db"], world["asm_db"], 25.0, log=log1)
-    mesh = make_mesh(8, data=2)
-    r2 = run_completeness(world["read_db"], world["asm_db"], 25.0, log=log2,
-                          mesh=mesh, block=64)
-    assert r1["total"] == pytest.approx(r2["total"], rel=1e-12)
-    assert r1["undrc"] == pytest.approx(r2["undrc"], rel=1e-12)
-    assert log1.getvalue() == log2.getvalue()
-
-
 def test_mesh_completeness_u16_readk_widening(world, tmp_path):
     """Tiny peak pushes readK past u8 on the wire: the mesh data plane
     must widen identically to single-device (r4 wire-dtype edge, now on

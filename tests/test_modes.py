@@ -95,11 +95,10 @@ def test_hist_matches_oracle(setup, tmp_path, use_prob):
         assert f"{ident}\t{pmiss}\t{cum}\t{pkasm}\t{qv:.2f}" in stderr
 
 
-def test_hist_sortjoin_even_k(tmp_path):
-    """Even k: palindromic fmer==rmer windows double their value; the
-    multiplier rides the device sort as a payload so the sorted-join
-    path now serves even k too (value(fmer)+value(rmer) summing,
-    merfin-globals.C:101-110)."""
+def test_hist_even_k_palindromes_match_oracle(tmp_path):
+    """Even k: palindromic fmer==rmer windows double their value
+    (value(fmer)+value(rmer) summing, merfin-globals.C:101-110); -hist
+    through the engine == the reference model."""
     k = 10
     rng = random.Random(11)
     # guarantee palindromic k-mers: embed reverse-complement stems
@@ -109,27 +108,32 @@ def test_hist_sortjoin_even_k(tmp_path):
     scaf = [random_dna(rng, 300) + pal + random_dna(rng, 300),
             random_dna(rng, 250)]
     reads = scaf * 3 + [random_dna(rng, 200)]
-    read_db = db_from_dict(refmodel.count_canonical(reads, k), k,
-                           str(tmp_path / "r"))
-    asm_db = db_from_dict(refmodel.count_canonical(scaf, k), k,
-                          str(tmp_path / "a"))
+    read_counts = refmodel.count_canonical(reads, k)
+    asm_counts = refmodel.count_canonical(scaf, k)
+    read_db = db_from_dict(read_counts, k, str(tmp_path / "r"))
+    asm_db = db_from_dict(asm_counts, k, str(tmp_path / "a"))
     fasta = tmp_path / "asm.fasta"
     fasta.write_text("".join(f">s{i}\n{s}\n" for i, s in enumerate(scaf)))
 
-    rl, al = build_lookup(read_db), build_lookup(asm_db)
-    base = KstarEngine(rl, al, k, PEAK, chunk=512, batch=2, sortjoin=False)
-    sj = KstarEngine(rl, al, k, PEAK, chunk=512, batch=2, sortjoin=True)
-    assert sj.sortjoin
-    log1, log2 = io.StringIO(), io.StringIO()
-    r1 = run_hist(base, SeqFile(str(fasta)), str(tmp_path / "h1"), log=log1)
-    r2 = run_hist(sj, SeqFile(str(fasta)), str(tmp_path / "h2"), log=log2)
-    assert r1 == r2
-    assert (tmp_path / "h1").read_text() == (tmp_path / "h2").read_text()
-    assert log1.getvalue() == log2.getvalue()
+    engine = KstarEngine(build_lookup(read_db), build_lookup(asm_db), k,
+                         PEAK, chunk=512, batch=2)
+    res = run_hist(engine, SeqFile(str(fasta)), str(tmp_path / "h"),
+                   log=io.StringIO())
+    _, undr, over, kasm, kmissing, kover = refmodel.hist_mode(
+        [(f"s{i}", s) for i, s in enumerate(scaf)], read_counts,
+        asm_counts, k, PEAK)
+    assert res["kasm"] == kasm and res["missing"] == kmissing
+    assert math.isclose(res["kover_cpy"], kover, rel_tol=1e-12,
+                        abs_tol=1e-12)
+    expect = [f"{ii * -0.2:.1f}\t{undr[ii]}"
+              for ii in sorted(undr, reverse=True) if ii > 0 and undr[ii]]
+    expect.append(f"{0.0:.1f}\t{undr.get(0, 0) + over.get(0, 0)}")
+    expect += [f"{ii * 0.2:.1f}\t{over[ii]}"
+               for ii in sorted(over) if ii > 0 and over[ii]]
+    assert (tmp_path / "h").read_text().splitlines() == expect
     # the palindrome really fired (lookup doubles fmer==rmer)
     assert refmodel.revcomp(pal) == pal
-    assert min(pal, refmodel.revcomp(pal)) in refmodel.count_canonical(
-        scaf, k)
+    assert min(pal, refmodel.revcomp(pal)) in asm_counts
 
 
 @pytest.mark.parametrize("chunk", [4096, 8192])
@@ -216,21 +220,6 @@ def test_hist_group_finalize_checks_dispatch_time_nbins(tmp_path):
     assert stats[0].kasm == kasm and stats[0].kmissing == kmissing
     for ii, n in undr.items():
         assert uh[ii] == n
-
-
-def test_hist_sortjoin_engine_matches(setup, tmp_path):
-    """The gather-free sorted-join hist path gives identical results."""
-    base = _engine(setup, prob=setup["prob"], chunk=512)
-    rl = build_lookup(setup["read_db"])
-    al = build_lookup(setup["asm_db"])
-    sj = KstarEngine(rl, al, K, PEAK, prob_table=setup["prob"], chunk=512,
-                     batch=2, sortjoin=True)
-    assert sj.sortjoin
-    log1, log2 = io.StringIO(), io.StringIO()
-    r1 = run_hist(base, SeqFile(setup["fasta"]), str(tmp_path / "h1"), log=log1)
-    r2 = run_hist(sj, SeqFile(setup["fasta"]), str(tmp_path / "h2"), log=log2)
-    assert r1 == r2
-    assert (tmp_path / "h1").read_text() == (tmp_path / "h2").read_text()
 
 
 def test_dump_matches_oracle(setup, tmp_path):

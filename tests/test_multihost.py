@@ -83,10 +83,9 @@ def _free_port() -> int:
 def _run_driver_src(tmp, tag, src, extra_env):
     env = {**os.environ,
            "PYTHONPATH": REPO,
-           "MERFIN_PLATFORM": "cpu",
            "JAX_PLATFORMS": "cpu",
            "XLA_FLAGS": "",
-           "MERFIN_TPU_CACHE": str(tmp / "jaxcache"),
+           "JAX_COMPILATION_CACHE_DIR": str(tmp / "jaxcache"),
            **extra_env}
     return subprocess.Popen(
         [sys.executable, "-c", src, str(tmp), tag],
@@ -179,9 +178,9 @@ print("ALLDONE")
 
 
 def _run_driver_src_mode(tmp, tag, mode, extra_env):
-    env = {**os.environ, "PYTHONPATH": REPO, "MERFIN_PLATFORM": "cpu",
-           "JAX_PLATFORMS": "cpu", "XLA_FLAGS": "",
-           "MERFIN_TPU_CACHE": str(tmp / "jaxcache"), **extra_env}
+    env = {**os.environ, "PYTHONPATH": REPO, "JAX_PLATFORMS": "cpu",
+           "XLA_FLAGS": "",
+           "JAX_COMPILATION_CACHE_DIR": str(tmp / "jaxcache"), **extra_env}
     return subprocess.Popen(
         [sys.executable, "-c", RESUME_DRIVER, str(tmp), tag, mode],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
@@ -417,9 +416,8 @@ def test_global_mesh_spans_two_processes(world):
         e = {**env, "MERFIN_PROCESS_ID": str(i)}
         procs.append(subprocess.Popen(
             [sys.executable, "-c", MESH_DRIVER, str(tmp), f"gm{i}"],
-            env={**os.environ, "PYTHONPATH": REPO, "MERFIN_PLATFORM": "cpu",
-                 "JAX_PLATFORMS": "cpu",
-                 "MERFIN_TPU_CACHE": str(tmp / "jaxcache"), **e},
+            env={**os.environ, "PYTHONPATH": REPO, "JAX_PLATFORMS": "cpu",
+                 "JAX_COMPILATION_CACHE_DIR": str(tmp / "jaxcache"), **e},
             stdout=subprocess.PIPE, stderr=subprocess.PIPE))
     outs = [p.communicate(timeout=300) for p in procs]
     for p, (out, err) in zip(procs, outs):

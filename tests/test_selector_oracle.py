@@ -16,7 +16,7 @@ import random
 
 import numpy as np
 
-import refmodel
+from tests import refmodel
 from merfin_tpu.io.vcf import VcfRecord, PosGT, GtAllele
 from merfin_tpu.variants.enumerate import VarPath
 from merfin_tpu.variants.score import PathScore

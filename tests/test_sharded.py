@@ -168,92 +168,26 @@ def test_sharded_dump_matches_single_device(dbs):
         assert g[4] == w[4] and g[5] == w[5]
 
 
-def test_sharded_rec_lookup_matches_host(dbs):
-    """The v4 rec-format sharded table (the accelerator default mesh
-    data plane) probes bit-identically to the host lookup — run here in
-    Pallas interpret mode on the virtual CPU mesh."""
+def test_sharded_lookup_sorted_sentinel_stream(dbs):
+    """A SORTED query stream padded with u64::MAX sentinels — the shape
+    the sorted -completeness mesh step feeds its shards — probes
+    exactly: real keys hit, misses and sentinels read 0."""
     read_db, _, _ = dbs
     import jax.numpy as jnp
 
     mesh = make_mesh(8)
-    sl = ShardedLookup.build(read_db, mesh, fmt="rec")
+    sl = ShardedLookup.build(read_db, mesh)
     hl = build_lookup(read_db, host=True)
 
     rng = np.random.default_rng(2)
-    q = rng.integers(0, 1 << (2 * K), size=4096).astype(np.uint64)
-    q = np.concatenate([q, np.asarray(read_db.keys)])[:8192]
-    got = np.asarray(sl.lookup(jnp.asarray(q)))
-    np.testing.assert_array_equal(got.astype(np.uint64), hl(q))
-    # unsorted lookup_np path (sort -> probe -> unsort inside shard_map)
-    got2 = sl.lookup_np(q[:3000])
-    np.testing.assert_array_equal(got2, hl(q[:3000]))
-
-
-def test_multichip_hist_rec_matches_single_device(dbs):
-    """make_hist_step over rec-format shards (sorted-join mesh data
-    plane) == the single-device engine, including the sorted-carry flow
-    for seg-free hist reductions."""
-    read_db, asm_db, scaf = dbs
-    import jax
-    from jax.sharding import NamedSharding, PartitionSpec as P
-
-    mesh = make_mesh(8, data=2)
-    srl = ShardedLookup.build(read_db, mesh, fmt="rec")
-    sal = ShardedLookup.build(asm_db, mesh, fmt="rec")
-
-    from merfin_tpu.score.value_map import ValueMap
-
-    peak = 3.0
-    vmap = ValueMap(peak, None, int(np.asarray(read_db.vals).max()))
-    step = make_hist_step(mesh, srl, sal, K, vmap)
-
-    chunk = 256
-    codes = encode_bases(scaf[0])
-    b = np.full((2, chunk + K - 1), 4, dtype=np.uint8)
-    b[0, :] = codes[: chunk + K - 1]
-    piece = codes[chunk : 2 * chunk + K - 1]
-    b[1, : piece.shape[0]] = piece
-    b_sharded = jax.device_put(b, NamedSharding(mesh, P("d", None)))
-
-    from merfin_tpu.parallel.multichip import zero_hist_state
-
-    (kasm, kmissing, kover, undr, over, max_idx, overflow, fallbacks,
-     *kov_parts) = step(zero_hist_state(), b_sharded)
-
-    engine = KstarEngine(build_lookup(read_db), build_lookup(asm_db), K, peak,
-                         chunk=chunk, batch=2)
-    (kasm1, kmis1, kover1, undr1, over1,
-     *_rest) = engine._hist_step(engine._zero_hist_state(), b)
-
-    assert int(kasm) == int(kasm1)
-    assert int(kmissing) == int(kmis1)
-    assert float(kover) == pytest.approx(float(kover1), rel=1e-15)
-    np.testing.assert_array_equal(np.asarray(undr), np.asarray(undr1))
-    np.testing.assert_array_equal(np.asarray(over), np.asarray(over1))
-
-
-def test_sharded_rec_dump_matches_single_device(dbs):
-    """rec-format mesh -dump (positional: sort -> join -> unsort by
-    carried index) == the single-device engine, byte for byte."""
-    from merfin_tpu.parallel.engine import ShardedKstarEngine
-
-    read_db, asm_db, scaf = dbs
-    peak = 3.0
-    codes = encode_bases(scaf[0] + "N" + scaf[1])
-
-    mesh = make_mesh(8, data=2)
-    srl = ShardedLookup.build(read_db, mesh, fmt="rec")
-    sal = ShardedLookup.build(asm_db, mesh, fmt="rec")
-    sharded = ShardedKstarEngine(mesh, srl, sal, K, peak, chunk=256)
-    single = KstarEngine(build_lookup(read_db), build_lookup(asm_db), K,
-                         peak, chunk=256, batch=2)
-
-    got = list(sharded.dump_sequence(codes))
-    want = list(single.dump_sequence(codes))
-    assert len(got) == len(want)
-    for g, w in zip(got, want):
-        assert g[0] == w[0]
-        np.testing.assert_array_equal(g[1], w[1])
-        np.testing.assert_array_equal(g[2], w[2])
-        np.testing.assert_array_equal(g[3], w[3])
-        assert g[4] == w[4] and g[5] == w[5]
+    q = np.sort(np.concatenate([
+        rng.integers(0, 1 << (2 * K), size=2048).astype(np.uint64),
+        np.asarray(read_db.keys)[:2048]]))
+    q = np.concatenate([q, np.full(8192 - q.size, 0xFFFFFFFFFFFFFFFF,
+                                   np.uint64)])
+    got = np.asarray(sl.lookup(jnp.asarray(q))).astype(np.uint64)
+    n_real = int(np.count_nonzero(q != np.uint64(0xFFFFFFFFFFFFFFFF)))
+    np.testing.assert_array_equal(got[:n_real], hl(q[:n_real]))
+    assert (got[n_real:] == 0).all()
+    got2 = sl.lookup_np(q[:3000][::-1])
+    np.testing.assert_array_equal(got2, hl(q[:3000][::-1]))

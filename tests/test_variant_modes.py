@@ -192,46 +192,6 @@ def test_device_scorer_matches_host(world, tmp_path):
             assert a == b, (mode, pt is not None)
 
 
-def test_device_scorer_sortjoin_matches_host(world, tmp_path):
-    """The sorted-join scorer path (sort -> Pallas join -> unsort; the
-    accelerator default) is bit-identical to the host scorer — values
-    are exact either way, only the probe strategy differs."""
-    import numpy as np
-
-    from merfin_tpu.score.kstar import ProbTable
-    from merfin_tpu.variants.device_score import DeviceScorer
-
-    prob = ProbTable(np.asarray([1, 1, 2], np.uint32),
-                     np.asarray([0.9, 0.8, 0.7]))
-    rl = build_lookup(world["read_db"])
-    al = build_lookup(world["asm_db"])
-    for mode in ("polish", "filter"):
-        for pt in (None, prob):
-            vcf = VcfFile(world["vcf"], log=io.StringIO())
-            vcf.merge_clusters(K, comb=15, nosplit=False, log=io.StringIO())
-            host_out = tmp_path / f"h_{mode}_{pt is not None}"
-            run_variants(mode, SeqFile(world["fasta"]), vcf, K,
-                         rl.lookup_np, al.lookup_np, peak=30.0,
-                         prob_table=pt, out_name=str(host_out),
-                         log=io.StringIO())
-
-            vcf2 = VcfFile(world["vcf"], log=io.StringIO())
-            vcf2.merge_clusters(K, comb=15, nosplit=False, log=io.StringIO())
-            scorer = DeviceScorer(rl, al, K, 30.0, pt, sortjoin=True)
-            # split into several spans to cover the stitch path too
-            scorer.MAX_WINDOWS = 4096
-            dev_out = tmp_path / f"sj_{mode}_{pt is not None}"
-            run_variants(mode, SeqFile(world["fasta"]), vcf2, K,
-                         rl.lookup_np, al.lookup_np, peak=30.0,
-                         prob_table=pt, out_name=str(dev_out),
-                         log=io.StringIO(), scorer=scorer)
-
-            suffix = "polish" if mode == "polish" else "filter"
-            a = (host_out.parent / f"{host_out.name}.{suffix}.vcf").read_bytes()
-            b = (dev_out.parent / f"{dev_out.name}.{suffix}.vcf").read_bytes()
-            assert a == b, (mode, pt is not None)
-
-
 def test_device_scorer_span_chunking(world, monkeypatch):
     """Streams larger than MAX_WINDOWS split at path boundaries into
     multiple dispatches; per-path results stitch exactly."""
@@ -369,36 +329,4 @@ def test_device_scorer_pooled_imap_matches_host(world, tmp_path, monkeypatch):
 
     a = (tmp_path / "h_pool.polish.vcf").read_bytes()
     b = (tmp_path / "d_pool.polish.vcf").read_bytes()
-    assert a == b
-
-
-def test_sharded_scorer_rec_matches_host(world, tmp_path):
-    """ShardedScorer over rec-format (sorted-join) table shards — the
-    accelerator mesh default — is bit-identical to the host scorer."""
-    from merfin_tpu.parallel.sharded import ShardedLookup, make_mesh
-    from merfin_tpu.variants.device_score import ShardedScorer
-
-    mesh = make_mesh(8)
-    rs = ShardedLookup.build(world["read_db"], mesh, fmt="rec")
-    As = ShardedLookup.build(world["asm_db"], mesh, fmt="rec")
-    rl = build_lookup(world["read_db"])
-    al = build_lookup(world["asm_db"])
-
-    vcf = VcfFile(world["vcf"], log=io.StringIO())
-    vcf.merge_clusters(K, comb=15, nosplit=False, log=io.StringIO())
-    host_out = tmp_path / "h_rec"
-    run_variants("polish", SeqFile(world["fasta"]), vcf, K,
-                 rl.lookup_np, al.lookup_np, peak=30.0, prob_table=None,
-                 out_name=str(host_out), log=io.StringIO())
-
-    vcf2 = VcfFile(world["vcf"], log=io.StringIO())
-    vcf2.merge_clusters(K, comb=15, nosplit=False, log=io.StringIO())
-    scorer = ShardedScorer(mesh, rs, As, K, 30.0, None)
-    sh_out = tmp_path / "s_rec"
-    run_variants("polish", SeqFile(world["fasta"]), vcf2, K,
-                 rs.lookup_np, As.lookup_np, peak=30.0, prob_table=None,
-                 out_name=str(sh_out), log=io.StringIO(), scorer=scorer)
-
-    a = (tmp_path / "h_rec.polish.vcf").read_bytes()
-    b = (tmp_path / "s_rec.polish.vcf").read_bytes()
     assert a == b
